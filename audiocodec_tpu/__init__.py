@@ -1,7 +1,7 @@
-"""audiocodec_tpu — a TPU-native (JAX/XLA/Pallas) perceptual audio codec framework.
+"""audiocodec_tpu — a JAX/XLA perceptual audio codec framework.
 
 Capability parity with korneelvdbroek/audiocodec (MDCT filter bank +
-psychoacoustic masking model), redesigned TPU-first. See SURVEY.md for the
+psychoacoustic masking model), redesigned for accelerators. See SURVEY.md for the
 structural analysis of the reference and README.md for the design.
 """
 

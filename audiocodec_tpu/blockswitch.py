@@ -4,7 +4,7 @@ The classic pre-echo weapon besides TNS (tns.py): when a frame contains an
 attack, quantization noise of the long transform smears over the whole
 2N-sample span — audible BEFORE the attack, where there is nothing to mask
 it. AAC switches the filter bank to eight short windowed MDCTs for such
-frames ("EIGHT_SHORT"). This module is the TPU-first formulation of the
+frames ("EIGHT_SHORT"). This module is the batched, static-shape formulation of the
 same idea, exploiting a structural property of this codec's filter bank:
 
 **The long and short representations are one orthogonal matrix apart.**
@@ -51,8 +51,7 @@ derivation — exactly like dct_precision — so it FOLLOWS the codec's
 precision ladder ("int8" maps to one-pass float: the switched input is
 spectra, where flat per-row int8 error is the measured failure mode —
 docs/DESIGN.md §3c). At the default "highest" this is the same pinning
-as ops/dct.py; at one-pass it cuts the feature's +2.55 ms/encode
-device cost (benchmarks/RESULTS.md coded-feature table).
+as ops/dct.py; at one-pass it cuts the feature's matmul cost.
 """
 
 from __future__ import annotations
@@ -128,8 +127,8 @@ def transition_matrices(filters_n: int, factor: int = FACTOR,
 def _apply(spectrum: jax.Array, mat: jax.Array,
            precision: str = "highest") -> jax.Array:
     """[B, F, N, C] @ [N, N] along the bin axis at the ladder precision
-    (default HIGHEST — the TPU f32 default is one bf16 pass, same
-    pinning as ops/dct.py; "int8" maps to one-pass float, see module
+    (default HIGHEST — an accelerator's f32 default rounds its inputs,
+    TF32 on an H100; same pinning as ops/dct.py; "int8" maps to one-pass float, see module
     docstring)."""
     if precision == "int8":
         precision = "default"

@@ -13,7 +13,7 @@ bitstream at all (/root/reference/audiocodec/psychoacoustic.py:151-167 —
 its "encode" is noise injection); this module is framework-added surface
 on the coded paths, a sibling of nf.py.
 
-TPU-first shape: the copy-up map is a STATIC index vector, so the fill is
+Accelerator-friendly shape: the copy-up map is a STATIC index vector, so the fill is
 one gather (compiled to slices), one fused multiply, one where — no
 data-dependent shapes, no sort. Encoder analysis is two masked
 multiply-reduces per group.

@@ -75,19 +75,12 @@ class Codec:
         window_type="vorbis",
         compute_dtype=jnp.float32,
         fast_bf16: bool = False,
-        use_pallas="auto",
         dct_precision: str = "highest",
         bark_precision: str | None = None,
-        pallas_kernel: str = "auto",
         sidecar_grid: int = _scq.DEFAULT_K2,
     ) -> "Codec":
         """Build the codec pytree.
 
-        :param use_pallas: defaults to ``"auto"`` — the composed pipeline
-            measures faster WITH the round-3 kernels wherever auto turns
-            them on (round_trip_quantized 2.71 vs 3.15 ms at f32 HIGHEST,
-            0.78 vs 0.85 ms bf16-fast on v5e — docs/DESIGN.md §3), so the
-            flagship path ships on them.
         :param bark_precision: matmul precision of the psychoacoustic
             Bark contractions; defaults to ``dct_precision`` (one knob for
             the whole pipeline). Decoders of transmitted bitstreams must
@@ -109,9 +102,7 @@ class Codec:
                 window_type=window_type,
                 compute_dtype=compute_dtype,
                 fast_bf16=fast_bf16,
-                use_pallas=use_pallas,
                 dct_precision=dct_precision,
-                pallas_kernel=pallas_kernel,
             ),
             psycho=PsychoacousticModel.create(
                 sample_rate,
@@ -161,22 +152,6 @@ class Codec:
         """encode + decode in one program. Output has filters_n padding
         samples at each end relative to the input (blocks+1 framing twice)."""
         return self.decode(self.encode(x, key, drown))
-
-    # -- fast path: hardware-PRNG noise ---------------------------------------
-
-    def encode_fast(self, x: jax.Array, seed, drown=0.0) -> jax.Array:
-        """Like :meth:`encode` but with the fused Pallas noise kernel
-        (PsychoacousticModel.add_noise_fast): same distribution, one HBM
-        pass, hardware PRNG seeded by an int instead of a jax key."""
-        spectrum = self.mdct.transform(x)
-        tonality = self.psycho.tonality(spectrum)
-        threshold = self.psycho.global_masking_threshold(
-            spectrum, tonality, drown
-        )
-        return self.psycho.add_noise_fast(seed, spectrum, threshold)
-
-    def round_trip_fast(self, x: jax.Array, seed, drown=0.0) -> jax.Array:
-        return self.decode(self.encode_fast(x, seed, drown))
 
     # -- quantized path -------------------------------------------------------
 

@@ -7,7 +7,7 @@ The reference is used as::
     mdct = MDCTransformer(filters_n, window_type)
     pa = psychoacoustic.PsychoacousticModel(sample_rate, ...)
 
-This module lets that code run on TPU by switching only the import::
+This module lets that code run on JAX by switching only the import::
 
     from audiocodec_tpu.compat import MDCTransformer, PsychoacousticModel
 
@@ -91,9 +91,6 @@ class MDCTransformer:
             filters_n=filters_n,
             window_type=window_type,
             compute_dtype=_canonical(compute_dtype),
-            # the shim's contract is strictest reference numerics, so it
-            # stays on the XLA path rather than the "auto" kernel default
-            use_pallas=False,
         )
         self.filters_n = filters_n
         self.window_type = window_type

@@ -21,7 +21,7 @@ quantizer or bitstream at all
 noise injection); this is framework-added surface on the coded paths, a
 sibling of nf.py/bwe.py.
 
-TPU-first shape: the source is the other channel at the SAME bin — one
+Accelerator-friendly shape: the source is the other channel at the SAME bin — one
 slice, one fused multiply under a static mask; encoder analysis is two
 masked multiply-reduces per group (the projection). No gathers, no
 data-dependent shapes.

@@ -1,12 +1,12 @@
-"""TPU-native MDCT analysis/synthesis filter bank.
+"""MDCT analysis/synthesis filter bank.
 
 Capability parity with the reference's ``MDCTransformer``
-(audiocodec/mdctransformer.py:12-368), redesigned for TPU:
+(audiocodec/mdctransformer.py:12-368), redesigned for an accelerator:
 
 * The polyphase stage is evaluated sparsely — 2 multiplies + 1 add per
   sample (see ops/folding.py) — instead of the reference's dense [N, N]
   2-tap convolution (its self-documented inefficiency, mdctransformer.py:16-18).
-* DCT-IV is an [N, N] cosine matmul on the MXU (see ops/dct.py) instead of
+* DCT-IV is an [N, N] cosine matmul (see ops/dct.py) instead of
   an FFT-based DCT-III with zero-interleaving (mdctransformer.py:311-347).
 * The transformer is a frozen pytree dataclass: precomputed coefficient
   vectors are leaves, so instances pass through jit/vmap/pjit without
@@ -47,14 +47,11 @@ from audiocodec_tpu.utils import dtypes as _dtypes
     data_fields=[
         "wa_r", "wb", "wc", "ffr", "p", "q", "r", "s_r",
         "dct_mat_fwd", "dct_mat_inv",
-        "pfwd_wa", "pfwd_wb", "pfwd_mat", "pinv_wa", "pinv_wb", "pinv_mat",
-        "pfwd_rot", "pinv_rot",
-        "dense_fwd_cur", "dense_fwd_prev", "dense_inv_cur", "dense_inv_prev",
+        "dense_fwd", "dense_inv",
     ],
     meta_fields=[
         "filters_n", "window_type", "compute_dtype", "fast_bf16",
-        "use_pallas", "dct_precision", "pallas_kernel",
-        "pallas_int8_scale",
+        "dct_precision",
     ],
 )
 @dataclasses.dataclass(frozen=True)
@@ -68,35 +65,17 @@ class MDCT:
     :param fast_bf16: with bfloat16 compute, run the DCT matmul natively in
         bf16 with f32 accumulation instead of upcasting (faster, slightly
         less accurate than the reference's upcast policy).
-    :param use_pallas: which directions run the fused Pallas kernels
-        (ops/pallas_mdct.py). ``"auto"`` (create-time default) resolves on
-        a real TPU backend to ``True`` (both directions) wherever the
-        round-3 kernels measure faster than XLA — multi-pass precisions
-        (highest/high) at eligible N, and the bf16 ``fast_bf16`` path at
-        one-pass tiers ("default", "int8") — and ``False`` otherwise; in
-        particular f32 at ``dct_precision="default"``/"int8" stays XLA
-        (the dense two-matmul wins: Mosaic's float dot sustains ~66 TF/s
-        vs XLA's ~175 on this shape, and f32 tiles double the int8
-        kernels' DMA bytes — docs/DESIGN.md §3/§3c). ``True`` = both
-        directions, ``"forward"``/``"inverse"`` = that direction only,
-        ``False`` = pure-XLA. Composed pipelines inherit the same
-        measured win (round_trip_quantized 2.71 vs 3.15 ms at f32
-        HIGHEST, 0.78 vs 0.85 ms bf16-fast, 0.743 vs 0.791 bf16-int8 —
-        docs/DESIGN.md §3, §3c).
+    :param dct_precision: matmul tier of the transform (ops/dct.py
+        PRECISIONS, plus "int8"). "highest" and "high" use the sparse
+        fold and one [N, N] DCT-IV matmul; "default" and "int8" use the
+        dense formulation below.
     """
 
     filters_n: int
     window_type: object
     compute_dtype: object
     fast_bf16: bool
-    use_pallas: bool
     dct_precision: str
-    # Kernel design the Pallas directions use: "mono" = one [N, N]
-    # matmul per frame; "radix" = radix-2 DCT-IV split — rotation layer +
-    # two [N/2, N/2] matmuls + butterfly, HALF the MACs and a QUARTER the
-    # resident bytes (ops/pallas_mdct.py::_radix_pieces). Resolved at
-    # create time; a perf knob, never quantization-affecting.
-    pallas_kernel: str
     # Fold/unfold weights, shape [N/2] each, in compute_dtype:
     wa_r: jax.Array
     wb: jax.Array
@@ -111,37 +90,13 @@ class MDCT:
     # into these copies so no separate full-array scaling pass exists.
     dct_mat_fwd: jax.Array
     dct_mat_inv: jax.Array
-    # Pallas-path parameters (swizzled-basis fold weights [1, N] and the
-    # row/column-permuted scaled DCT matrix [N, N] per direction — see
-    # ops/pallas_mdct.py); None unless use_pallas.
-    pfwd_wa: object
-    pfwd_wb: object
-    pfwd_mat: object
-    pinv_wa: object
-    pinv_wb: object
-    pinv_mat: object
-    # Radix-kernel rotation vectors, stacked [2, N] per direction (rows =
-    # the two per-lane rotation operands); None for the "mono" design.
-    # For "radix", pfwd_mat/pinv_mat hold the stacked [2, N/2, N/2]
-    # half-size residents instead of one [N, N] matrix.
-    pfwd_rot: object
-    pinv_rot: object
-    # Dense two-matmul parameters, used at dct_precision="default": the
-    # fold collapses into the matmuls (cur @ (H0 M) + prev @ (H1 M)) —
-    # 2x the matmul FLOPs but ZERO lane-reversal passes, and at one-pass
-    # precision the flip pass costs ~3x what the extra FLOPs do (measured
-    # fwd 0.72 -> 0.42 ms, inv 0.75 -> 0.33 ms at B=32/10 s/N=1024 on
-    # v5e). None unless that mode is active.
-    dense_fwd_cur: object
-    dense_fwd_prev: object
-    dense_inv_cur: object
-    dense_inv_prev: object
-    # At dct_precision="int8" with Pallas directions: (fwd, inv) static
-    # rescales of the host-quantized int8 residents (exact f64 scale,
-    # s_m/127^2 each; None for a direction not on the kernel). Static —
-    # a deterministic precompute of (filters_n, window_type), never
-    # signal-dependent.
-    pallas_int8_scale: object = None
+    # Dense parameters [N, 2N], used at dct_precision="default"/"int8":
+    # the fold collapses into the matmul, y[n] = x[n] @ (H0 M) +
+    # x[n-1] @ (H1 M), computed as ONE GEMM against [H0 M | H1 M] and a
+    # shifted add (ops/dct.two_tap) — 2x the matmul FLOPs and no
+    # lane-reversal or fold passes. None unless that mode is active.
+    dense_fwd: object
+    dense_inv: object
 
     @classmethod
     def create(
@@ -150,9 +105,7 @@ class MDCT:
         window_type="vorbis",
         compute_dtype=jnp.float32,
         fast_bf16: bool = False,
-        use_pallas="auto",
         dct_precision: str = "highest",
-        pallas_kernel: str = "auto",
     ) -> "MDCT":
         """Precompute fold weights and the DCT matrix (float64 on host, then
         downcast once — the reference's mixed-precision variable treatment,
@@ -163,209 +116,25 @@ class MDCT:
                 f"even, got {filters_n}"
             )
         dtype = _dtypes.canonicalize_compute_dtype(compute_dtype)
-        if use_pallas not in (False, True, "auto", "forward", "inverse"):
-            raise ValueError(
-                "use_pallas must be one of False, True, 'auto', 'forward', "
-                f"'inverse'; got {use_pallas!r}"
-            )
         if dct_precision not in _dct.MDCT_PRECISIONS:
             raise ValueError(
                 "dct_precision must be one of "
                 f"{sorted(_dct.MDCT_PRECISIONS)}, got {dct_precision!r}"
             )
-        if dct_precision == "int8" and jnp.dtype(
-            _dtypes.canonicalize_compute_dtype(compute_dtype)
-        ) == jnp.dtype(jnp.float64):
+        if dct_precision == "int8" and dtype == jnp.dtype(jnp.float64):
             raise ValueError(
-                "dct_precision='int8' targets the MXU's int8 path and is "
-                "not available with a float64 compute dtype"
+                "dct_precision='int8' runs int8 matmuls and is not "
+                "available with a float64 compute dtype"
             )
-        if pallas_kernel not in ("auto", "mono", "radix"):
-            raise ValueError(
-                "pallas_kernel must be 'auto', 'mono' or 'radix'; got "
-                f"{pallas_kernel!r}"
-            )
-        if pallas_kernel == "radix" and dct_precision == "int8":
-            raise ValueError(
-                "the radix kernel design has no int8 tier (its butterfly "
-                "overhead already loses at one-pass precisions); use "
-                "pallas_kernel='mono' or 'auto' with dct_precision='int8'"
-            )
-        if pallas_kernel == "auto":
-            # Both designs are exact; "auto" picks the hardware-measured
-            # winner per precision tier AND block size (docs/DESIGN.md
-            # §3). The single-matmul design wins every COMPOSED config
-            # where it is eligible (round_trip_quantized, N=1024: mono
-            # beats radix at all four precision/dtype configs), so it
-            # stays the default inside its caps. The radix design's
-            # quarter-size residents extend kernel eligibility to
-            # HIGHEST N=2048 — measured 1.34x/1.06x vs XLA standalone
-            # where mono cannot compile — so "auto" falls through to
-            # radix there. At one-pass "default" precision the radix
-            # butterfly's extra VPU work loses (measured 0.67-0.97x vs
-            # XLA), so it never extends that tier.
-            mono_cap = 1024 if dct_precision == "highest" else 2048
-            if filters_n <= mono_cap or dct_precision in ("default", "int8"):
-                pallas_kernel = "mono"
-            else:
-                pallas_kernel = "radix"
-        # Hardware eligibility: N a lane-friendly multiple of 256, capped
-        # by measured Mosaic scoped-VMEM ceilings. "highest" caps at
-        # N=1024: Mosaic internally decomposes the VMEM-resident f32
-        # matrix to ~7x its bytes (measured 114.6 MiB at N=2048 vs the
-        # ~95 MiB cap). "high"/"default" pre-split into bf16 residents
-        # (no decomposition) and reach N=2048 — at N=4096 the residents
-        # plus Mosaic's tb-independent scoped overhead still demand
-        # 114.3 MiB even at 32-row tiles, so 4096 stays on XLA. The radix
-        # design's residents are a QUARTER of the mono bytes (two
-        # [N/2, N/2] matrices), which moves the HIGHEST ceiling to 2048.
-        # Radix caps at 2048 for every tier: at N=4096 'high' the
-        # forward measures a tie with XLA (2.34 vs 2.33 ms) and the
-        # INVERSE kernel crashes the hardware compiler (tpu_compile
-        # subprocess exit 1, reproducible 2026-08-19), so 4096 stays on
-        # XLA everywhere.
-        n_cap = (
-            2048
-            if (pallas_kernel == "radix" or dct_precision != "highest")
-            else 1024
-        )
-        eligible = (
-            filters_n % 256 == 0
-            and filters_n <= n_cap
-            and dtype != jnp.dtype(jnp.float64)
-        )
-        if use_pallas == "auto":
-            # Resolve once at create time (stored resolved, so serialized
-            # configs replay deterministically) to the measured winners
-            # (docs/DESIGN.md §3): both directions at multi-pass
-            # precision, and at one-pass "default" only the bf16
-            # fast_bf16 path (f32-default is where Mosaic's dot loses to
-            # XLA's dense two-matmul). Anything but a real TPU backend
-            # can't run Mosaic kernels at speed.
-            # One-pass tiers ("default" one-pass bf16, "int8") win with
-            # kernels only on the bf16 fast path — f32 inputs double the
-            # tile DMA bytes and Mosaic's one-pass dot loses to XLA's
-            # dense two-matmul there (same-session composed
-            # round_trip_quantized, 2026-08-19: f32-int8 0.996 pallas vs
-            # 0.929 XLA; bf16-int8 0.743 pallas vs 0.836 XLA and 0.791
-            # flagship bf16-default — docs/DESIGN.md §3c).
-            wins = dct_precision not in ("default", "int8") or (
-                dtype == jnp.dtype(jnp.bfloat16) and fast_bf16
-            )
-            use_pallas = (
-                eligible and wins and jax.default_backend() == "tpu"
-            )
-        elif use_pallas and not eligible:
-            raise ValueError(
-                "use_pallas requires filters_n to be a multiple of 256 "
-                "(half-lane slicing at the 128-lane boundary) and <= "
-                f"{n_cap} (1024 at highest for the mono kernel, 2048 "
-                "otherwise — beyond these the matrix residents exceed "
-                "Mosaic's scoped VMEM or the compiler fails, measured on "
-                "hardware), and a non-float64 "
-                f"compute dtype; got filters_n={filters_n}, "
-                f"compute_dtype={dtype}, dct_precision={dct_precision!r}"
-            )
-        pallas_fwd = use_pallas in (True, "forward")
-        pallas_inv = use_pallas in (True, "inverse")
         coeffs = _folding.make_fold_coefficients(filters_n, window_type)
         mat_dtype = (
             jnp.float64 if dtype == jnp.dtype(jnp.float64) else jnp.float32
         )
         as_compute = lambda v: jnp.asarray(v, dtype=dtype)
-        fused = dict(
-            pfwd_wa=None, pfwd_wb=None, pfwd_mat=None,
-            pinv_wa=None, pinv_wb=None, pinv_mat=None,
-            pfwd_rot=None, pinv_rot=None,
-        )
-        int8_scales = [None, None]
-
-        def _host_int8(m64):
-            s_m = float(np.max(np.abs(m64)))
-            q = np.clip(
-                np.round(m64 * (127.0 / s_m)), -127, 127
-            ).astype(np.int8)
-            return jnp.asarray(q), s_m / (127.0 * 127.0)
-
-        if pallas_fwd or pallas_inv:
-            from audiocodec_tpu.ops import pallas_mdct as _pallas
-
-            # same bf16 policy as the XLA path: keep the parameters in f32
-            # and upcast around the kernel, unless fast_bf16 opts into
-            # native bf16 matmuls
-            fused_dtype = (
-                dtype
-                if dtype != jnp.dtype(jnp.bfloat16) or fast_bf16
-                else jnp.dtype(jnp.float32)
-            )
-            radix = pallas_kernel == "radix"
-            if pallas_fwd:
-                if radix:
-                    fwa, fwb, r1, r2, fp, fq = _pallas.radix_forward_params(
-                        filters_n, window_type
-                    )
-                    fm = np.stack([fp, fq])
-                    fused.update(
-                        pfwd_rot=jnp.asarray(
-                            np.concatenate([r1, r2]), dtype=fused_dtype
-                        )
-                    )
-                else:
-                    fwa, fwb, fm = _pallas.forward_params(
-                        filters_n, window_type
-                    )
-                if dct_precision == "int8":
-                    # host-quantized int8 resident; the exact f64 scale
-                    # rides as a static kernel constant (zero runtime
-                    # rescale plumbing)
-                    fm_q, int8_scales[0] = _host_int8(fm)
-                    fused.update(
-                        pfwd_wa=jnp.asarray(fwa, dtype=fused_dtype),
-                        pfwd_wb=jnp.asarray(fwb, dtype=fused_dtype),
-                        pfwd_mat=fm_q,
-                    )
-                else:
-                    fused.update(
-                        pfwd_wa=jnp.asarray(fwa, dtype=fused_dtype),
-                        pfwd_wb=jnp.asarray(fwb, dtype=fused_dtype),
-                        pfwd_mat=jnp.asarray(fm, dtype=fused_dtype),
-                    )
-            if pallas_inv:
-                if radix:
-                    iva, ivb, ra, rb, ip, iq = _pallas.radix_inverse_params(
-                        filters_n, window_type
-                    )
-                    im = np.stack([ip, iq])
-                    fused.update(
-                        pinv_rot=jnp.asarray(
-                            np.concatenate([ra, rb]), dtype=fused_dtype
-                        )
-                    )
-                else:
-                    iva, ivb, im = _pallas.inverse_params(
-                        filters_n, window_type
-                    )
-                if dct_precision == "int8":
-                    im_q, int8_scales[1] = _host_int8(im)
-                    fused.update(
-                        pinv_wa=jnp.asarray(iva, dtype=fused_dtype),
-                        pinv_wb=jnp.asarray(ivb, dtype=fused_dtype),
-                        pinv_mat=im_q,
-                    )
-                else:
-                    fused.update(
-                        pinv_wa=jnp.asarray(iva, dtype=fused_dtype),
-                        pinv_wb=jnp.asarray(ivb, dtype=fused_dtype),
-                        pinv_mat=jnp.asarray(im, dtype=fused_dtype),
-                    )
-        # Dense two-matmul mode: at one-pass ("default") matmul precision
-        # the 2x-FLOP fold-into-matmul formulation beats the sparse fold's
-        # lane-reversal passes; at multi-pass precisions the extra FLOPs
-        # dominate and the sparse fold stays. Pallas directions override.
-        dense = dict(
-            dense_fwd_cur=None, dense_fwd_prev=None,
-            dense_inv_cur=None, dense_inv_prev=None,
-        )
+        # Dense mode: at the one-pass tiers the 2x-FLOP fold-into-matmul
+        # formulation replaces the sparse fold's lane-reversal passes; at
+        # multi-pass precisions the sparse fold stays.
+        dense = dict(dense_fwd=None, dense_inv=None)
         if (
             dct_precision in ("default", "int8")
             and dtype != jnp.dtype(jnp.float64)
@@ -374,24 +143,20 @@ class MDCT:
             g0, g1 = _folding.dense_unfold_matrices(filters_n, window_type)
             m64 = _dct.dct4_matrix(filters_n)
             s = math.sqrt(4.0 * filters_n)
-            if not pallas_fwd:
-                dense.update(
-                    dense_fwd_cur=jnp.asarray(h0 @ m64 / s, dtype=mat_dtype),
-                    dense_fwd_prev=jnp.asarray(h1 @ m64 / s, dtype=mat_dtype),
-                )
-            if not pallas_inv:
-                dense.update(
-                    dense_inv_cur=jnp.asarray(m64 @ g0 * s, dtype=mat_dtype),
-                    dense_inv_prev=jnp.asarray(m64 @ g1 * s, dtype=mat_dtype),
-                )
+            dense.update(
+                dense_fwd=jnp.asarray(
+                    np.concatenate([h0 @ m64, h1 @ m64], axis=1) / s,
+                    dtype=mat_dtype),
+                dense_inv=jnp.asarray(
+                    np.concatenate([m64 @ g0, m64 @ g1], axis=1) * s,
+                    dtype=mat_dtype),
+            )
         return cls(
             filters_n=filters_n,
             window_type=window_type,
             compute_dtype=dtype,
             fast_bf16=fast_bf16,
-            use_pallas=use_pallas,
             dct_precision=dct_precision,
-            pallas_kernel=pallas_kernel,
             wa_r=as_compute(coeffs.wa_r),
             wb=as_compute(coeffs.wb),
             wc=as_compute(coeffs.wc),
@@ -408,26 +173,17 @@ class MDCT:
                 _dct.dct4_matrix(filters_n) * math.sqrt(4.0 * filters_n),
                 dtype=mat_dtype,
             ),
-            **fused,
             **dense,
-            pallas_int8_scale=(
-                tuple(int8_scales)
-                if dct_precision == "int8" and (pallas_fwd or pallas_inv)
-                else None
-            ),
         )
 
     @property
     def inv_precision(self) -> str:
         """Matmul mode of the SYNTHESIS direction.
 
-        "int8" is analysis-only on the XLA path: spectra are peaky
-        (30+ dB crest), so a per-frame int8 scale leaves flat error that
-        lands ABOVE the masking threshold in quiet bands — measured
-        composed NMR 0.30 vs 0.021 (14x). The synthesis falls back to
-        the one-pass float matmul; the Pallas kernels restore int8 on
-        synthesis with per-128-bin grouped scales (error tracks the
-        spectral envelope — measured NMR 0.029 at g=128).
+        "int8" is analysis-only: spectra are peaky (30+ dB crest), so a
+        per-frame int8 scale leaves flat error that lands ABOVE the
+        masking threshold in quiet bands — measured composed NMR 0.30
+        vs 0.021 (14x). The synthesis runs the one-pass float matmul.
         """
         return "default" if self.dct_precision == "int8" else self.dct_precision
 
@@ -456,58 +212,11 @@ class MDCT:
             xb = jnp.transpose(x, (0, 2, 1)).reshape(
                 batches_n, channels_n, blocks_n, n
             )
-            if self.use_pallas in (True, "forward"):
-                from audiocodec_tpu.ops import pallas_mdct as _pallas
-
-                rows = xb.reshape(batches_n * channels_n, blocks_n, n)
-                # The swizzle (flip of the lower half-lanes) fuses into the
-                # transpose/reshape above — it is what lets the kernel fold
-                # without lane reversals (ops/pallas_mdct.py docstring).
-                # Cast target is the fold weights' dtype (the matrix
-                # resident may be int8 at dct_precision="int8").
-                xs = _pallas.swizzle(rows.astype(self.pfwd_wa.dtype))
-                if self.pallas_kernel == "radix":
-                    # The radix kernel emits even/odd-split lane order;
-                    # the interleave is a reshape-transpose XLA fuses
-                    # into consumers (or cancels against the inverse's
-                    # de-interleave in a round trip).
-                    y = _pallas.interleave(
-                        _pallas.radix_fold_matmul(
-                            xs,
-                            self.pfwd_wa,
-                            self.pfwd_wb,
-                            self.pfwd_rot[0:1],
-                            self.pfwd_rot[1:2],
-                            self.pfwd_mat[0],
-                            self.pfwd_mat[1],
-                            self.dct_precision,
-                        )
-                    )
-                else:
-                    y = _pallas.fold_matmul(
-                        xs,
-                        self.pfwd_wa,
-                        self.pfwd_wb,
-                        self.pfwd_mat,
-                        self.dct_precision,
-                        (self.pallas_int8_scale or (1.0, 1.0))[0] or 1.0,
-                    )
-                y = y.astype(self.compute_dtype).reshape(
-                    batches_n, channels_n, blocks_n + 1, n
-                )
-            elif self.dense_fwd_cur is not None:
-                # dense two-matmul: y[n] = x[n] @ (H0 M) + x[n-1] @ (H1 M)
-                # (blocks+1 framing comes from the zero end/front pads)
-                zero = jnp.zeros_like(xb[:, :, :1])
-                cur = jnp.concatenate([xb, zero], axis=2)
-                prev = jnp.concatenate([zero, xb], axis=2)
-                y = _dct.dct4(
-                    cur, self.dense_fwd_cur, fast_bf16=self.fast_bf16,
-                    precision=self.dct_precision,
-                ) + _dct.dct4(
-                    prev, self.dense_fwd_prev, fast_bf16=self.fast_bf16,
-                    precision=self.dct_precision,
-                )
+            if self.dense_fwd is not None:
+                # dense: y[n] = x[n] @ (H0 M) + x[n-1] @ (H1 M), the
+                # blocks+1 framing from zero frames at both ends
+                y = _dct.two_tap(xb, self.dense_fwd, fast_bf16=self.fast_bf16,
+                                 precision=self.dct_precision)
             else:
                 folded = _folding.fold(
                     xb, self.wa_r, self.wb, self.wc, self.ffr
@@ -540,48 +249,11 @@ class MDCT:
             raise ValueError("need at least one spectral frame to invert")
         with jax.named_scope("mdct_inverse_transform"):
             yb = jnp.transpose(mdct_amplitudes, (0, 3, 1, 2))
-            if self.use_pallas in (True, "inverse"):
-                from audiocodec_tpu.ops import pallas_mdct as _pallas
-
-                rows = yb.reshape(batches_n * channels_n, blocks_n, n)
-                rows = rows.astype(self.pinv_wa.dtype)
-                if self.pallas_kernel == "radix":
-                    swz = _pallas.radix_matmul_scatter(
-                        _pallas.deinterleave(rows),
-                        self.pinv_wa,
-                        self.pinv_wb,
-                        self.pinv_rot[0:1],
-                        self.pinv_rot[1:2],
-                        self.pinv_mat[0],
-                        self.pinv_mat[1],
-                        self.dct_precision,
-                    )
-                else:
-                    swz = _pallas.matmul_scatter(
-                        rows,
-                        self.pinv_wa,
-                        self.pinv_wb,
-                        self.pinv_mat,
-                        self.dct_precision,
-                        (self.pallas_int8_scale or (1.0, 1.0))[1] or 1.0,
-                    )
-                # Kernel output is in the swizzled layout; the un-swizzle
-                # fuses into the merge-blocks reshape/transpose below.
-                out = _pallas.swizzle(swz).astype(
-                    self.compute_dtype
-                ).reshape(batches_n, channels_n, blocks_n + 1, n)
-            elif self.dense_inv_cur is not None:
-                # dense two-matmul: out[n] = y[n] @ (M G0) + y[n-1] @ (M G1)
-                zero = jnp.zeros_like(yb[:, :, :1])
-                cur = jnp.concatenate([yb, zero], axis=2)
-                prev = jnp.concatenate([zero, yb], axis=2)
-                out = _dct.dct4(
-                    cur, self.dense_inv_cur, fast_bf16=self.fast_bf16,
-                    precision=self.inv_precision,
-                ) + _dct.dct4(
-                    prev, self.dense_inv_prev, fast_bf16=self.fast_bf16,
-                    precision=self.inv_precision,
-                )
+            if self.dense_inv is not None:
+                # dense: out[n] = y[n] @ (M G0) + y[n-1] @ (M G1)
+                out = _dct.two_tap(yb, self.dense_inv,
+                                   fast_bf16=self.fast_bf16,
+                                   precision=self.inv_precision)
             else:
                 z = _dct.dct4(
                     yb, self.dct_mat_inv, fast_bf16=self.fast_bf16,

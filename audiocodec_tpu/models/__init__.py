@@ -5,7 +5,7 @@ psychoacoustic graphs into neural audio pipelines (its transforms are
 batched @tf.function graphs and its noise injection exists to simulate
 quantization differentiably — audiocodec/psychoacoustic.py:151-167). The
 reference ships no models; this package provides the canonical ones for
-the framework, TPU-first: pure-pytree parameters, MXU-shaped matmuls,
+the framework, accelerator-first: pure-pytree parameters, GEMM-shaped matmuls,
 mesh-sharded training steps.
 """
 

@@ -10,8 +10,8 @@ KNOWS the per-band quantization step size ``delta`` (it derives it from
 the transmitted sidecar), so the filter is conditioned on the exact noise
 magnitude of every bin.
 
-TPU shape choices match the autoencoder family: the band axis is the only
-contraction (each layer is one [B·T·C, ·] @ [·, H] MXU matmul; blocks
+Shape choices match the autoencoder family: the band axis is the only
+contraction (each layer is one [B·T·C, ·] @ [·, H] matmul; blocks
 stay a batch dim). Unlike the autoencoder, the ±1-frame temporal context
 shifts along the blocks axis, so ``sp`` sharding incurs a one-frame halo
 (a GSPMD-inserted collective-permute — the same class as the MDCT fold's

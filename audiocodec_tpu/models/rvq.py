@@ -12,12 +12,12 @@ the codebooks are trained. The reference anticipates trainable bottlenecks
 reference audiocodec/psychoacoustic.py:151-167) but ships none; this is
 the framework's production discrete-code path.
 
-TPU-first design decisions:
+Accelerator-first design decisions:
 
-* Nearest-codeword search is TWO MXU matmuls, never a gather: scores are
+* Nearest-codeword search is TWO matmuls, never a gather: scores are
   ``residual @ codebookᵀ`` ([M, D] @ [D, K]) and the selected codeword is
-  ``one_hot(argmin) @ codebook`` ([M, K] @ [K, D]). Mosaic/XLA have no
-  fast lane-gather; one-hot matmuls ARE the TPU idiom for table lookup.
+  ``one_hot(argmin) @ codebook`` ([M, K] @ [K, D]). A one-hot matmul
+  is one GEMM on the tensor cores and is differentiable.
 * The stage loop is a ``lax.scan`` over stacked codebooks ``[S, K, D]`` —
   one compiled body, S small (4-8), carries the residual.
 * Codebooks learn by exponential-moving-average k-means (VQ-VAE-2), not
@@ -143,7 +143,7 @@ def _unflatten_latents(flat: jax.Array, shape) -> jax.Array:
 
 
 def _nearest(residual: jax.Array, codebook: jax.Array):
-    """One stage: indices + selected codewords via two MXU matmuls.
+    """One stage: indices + selected codewords via two matmuls.
 
     argmin over ‖r − c‖² drops the ‖r‖² constant: minimize
     ‖c‖² − 2·r·c. Scores accumulate in f32 (bf16 inputs would otherwise

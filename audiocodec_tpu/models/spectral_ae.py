@@ -10,11 +10,11 @@ rather than waveform-domain): frames -> encoder MLP -> low-dim latent ->
 decoder MLP -> frames, trained end to end through the REAL codec chain
 against a waveform + noise-to-mask perceptual loss.
 
-TPU-first design decisions:
+Accelerator-first design decisions:
 
 * Per-frame dense layers contract over the filter-band axis N with
   everything else (batch, blocks, channels) batched — each layer is one
-  [B*T*C, N] @ [N, H] MXU matmul; no convolutions over time, so blocks
+  [B*T*C, N] @ [N, H] matmul; no convolutions over time, so blocks
   shard over the ``sp`` mesh axis with zero halo (the codec's MDCT carries
   the only cross-block coupling).
 * Parameters are a plain pytree dict (no framework), replicated over the
@@ -94,7 +94,7 @@ def init_params(key, cfg: SpectralAE, compute_dtype=jnp.float32) -> dict:
 
 
 def _dense(x, w, b):
-    """Contract the band axis of [B, T, N, C] frames: one batched MXU
+    """Contract the band axis of [B, T, N, C] frames: one batched
     matmul per layer ('btnc,nh->bthc'); f32 accumulation under bf16."""
     y = jnp.einsum(
         "btnc,nh->bthc", x, w, preferred_element_type=jnp.float32

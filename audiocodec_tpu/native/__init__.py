@@ -1,6 +1,6 @@
 """Native (C++) host runtime: bulk WAV decode + corpus framing loader.
 
-The compute path is JAX/XLA/Pallas on the TPU; this is the host-side
+The compute path is JAX/XLA on the accelerator; this is the host-side
 ingest that keeps a chip fed at corpus scale. The C++ library is built
 on first use with g++ (cached next to the source) and bound with ctypes;
 everything degrades gracefully to the pure-Python wav reader when no

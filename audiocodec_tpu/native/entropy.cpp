@@ -32,7 +32,7 @@
 //   (the original looped 16 candidate k's over every value). The
 //   estimate ignores escape overflow, which only ever costs a fraction
 //   of a percent on heavy-tailed groups; any k decodes identically.
-// Measured on this rig: ~6x encode, ~4x decode vs the per-bit version.
+// Measured: ~6x encode, ~4x decode vs the per-bit version.
 
 #include <algorithm>
 #include <cmath>

@@ -1,6 +1,6 @@
 // Native WAV decode + corpus framing loader.
 //
-// The TPU compute path is JAX/XLA/Pallas; this is the host-side runtime
+// The accelerator compute path is JAX/XLA; this is the host-side runtime
 // around it: bulk-decoding thousands of WAV clips into the framework's
 // [clips, samples, channels] float32 tensor convention fast enough to keep
 // a chip fed. Pure-Python wave/numpy decoding is an order of magnitude too

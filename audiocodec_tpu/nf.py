@@ -14,7 +14,7 @@ module is framework-added surface on the coded-bitstream paths, and is in
 spirit the reference's own noise model applied *selectively* where the
 bitstream lost the content.
 
-TPU-first shape: the encoder-side level analysis is two masked
+Accelerator-friendly shape: the encoder-side level analysis is two masked
 fused multiply-reduces per frame; the decoder fill is one PRNG tensor,
 one compare, and one fused multiply-add — no gather, no sort, no
 data-dependent shapes.

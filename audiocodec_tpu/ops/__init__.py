@@ -1,1 +1,1 @@
-"""Low-level TPU ops: windows, diamond folding, DCT-IV, Pallas kernels."""
+"""Low-level ops: windows, diamond folding, DCT-IV."""

@@ -1,10 +1,10 @@
-"""Orthonormal DCT-IV as an MXU matmul.
+"""Orthonormal DCT-IV as a dense matmul.
 
 The reference implements DCT-IV via a zero-interleaved upsample fed to an
-FFT-based DCT-III (audiocodec/mdctransformer.py:311-347). On TPU, for the
-block sizes a codec uses (N <= 4096), a direct [N, N] cosine matmul keeps
-the FLOPs on the 128x128 systolic array, fuses with the neighboring fold,
-and is both faster and more accurate than an FFT decomposition.
+FFT-based DCT-III (audiocodec/mdctransformer.py:311-347). For the block
+sizes a codec uses (N <= 4096), a direct [N, N] cosine matmul is one GEMM
+on the tensor cores, fuses with the neighboring fold, and is more accurate
+than an FFT decomposition.
 
 DCT-IV:  y_k = sqrt(2/N) * sum_n x_n cos(pi/N (n+1/2)(k+1/2))
 
@@ -15,7 +15,7 @@ property, mdctransformer.py:319).
 Precision policy (mirrors reference audiocodec/mdctransformer.py:326-344,
 which upcasts bfloat16 to float32 around the DCT): for bfloat16 compute,
 inputs are upcast to float32, the matmul runs in float32, and the result is
-downcast — unless fast_bf16=True, which runs a bf16 matmul with float32 MXU
+downcast — unless fast_bf16=True, which runs a bf16 matmul with float32
 accumulation (preferred_element_type) for maximum throughput.
 """
 
@@ -34,19 +34,20 @@ def dct4_matrix(filters_n: int) -> np.ndarray:
     )
 
 
+# What each tier means for a float32 matmul (jax.lax.Precision): on an
+# NVIDIA H100 "highest" is true float32 and "high" and "default" are BOTH
+# TF32 (10-bit mantissa inputs, float32 accumulation), so the two lower
+# tiers compute the same thing there; on the CPU all three are float32.
 PRECISIONS = {
-    # measured on v5e (N=1024 forward MDCT, max err vs float64):
-    "highest": jax.lax.Precision.HIGHEST,  # ~8e-9  (6-pass bf16)
-    "high": jax.lax.Precision.HIGH,        # ~7e-7  (3-pass bf16, ~15% faster)
-    "default": jax.lax.Precision.DEFAULT,  # ~1e-4  (1-pass bf16, fastest)
+    "highest": jax.lax.Precision.HIGHEST,
+    "high": jax.lax.Precision.HIGH,
+    "default": jax.lax.Precision.DEFAULT,
 }
 
-# The MDCT additionally accepts the sub-bf16 "int8" mode (dynamic-range
-# int8 MXU matmuls — v5e does ~394 int8 TOPS vs ~197 bf16 TFLOPS,
-# measured 1.41x on the transform matmul, benchmarks/int8_probe.py).
-# The psychoacoustic Bark contractions do NOT accept it: bark_precision
-# is bitstream-critical (step sizes expand through W_inv) and its wire
-# enum stays on the lax.Precision ladder.
+# The MDCT additionally accepts the "int8" mode (dynamic-range int8
+# matmuls with int32 accumulation). The psychoacoustic Bark contractions
+# do NOT accept it: bark_precision is recorded on the wire and its enum
+# stays on the lax.Precision ladder.
 MDCT_PRECISIONS = frozenset(PRECISIONS) | {"int8"}
 
 
@@ -54,10 +55,7 @@ def int8_rowquant(u: jnp.ndarray):
     """Symmetric per-row (last-axis) dynamic int8 quantization.
 
     scale = max|row| + 1e-12 (kept, divided out as s/127 on dequant),
-    round-to-nearest, clip to ±127. THE recipe for every int8 tier —
-    the XLA path here and the Pallas kernels (ops/pallas_mdct.py) share
-    this function so the two lowerings cannot drift numerically.
-    Mosaic-traceable (plain jnp). Returns (int8 codes, f32 scale with
+    round-to-nearest, clip to ±127. Returns (int8 codes, f32 scale with
     keepdims)."""
     uf = u.astype(jnp.float32)
     s = jnp.max(jnp.abs(uf), axis=-1, keepdims=True) + jnp.float32(1e-12)
@@ -68,7 +66,7 @@ def int8_rowquant(u: jnp.ndarray):
 
 
 def _int8_matmul(x: jnp.ndarray, mat: jnp.ndarray) -> jnp.ndarray:
-    """x [..., K] @ mat [K, M] on the MXU's int8 path, float32 out.
+    """x [..., K] @ mat [K, M] as an s8 x s8 -> s32 matmul, float32 out.
 
     The signal is dynamically requantized per row (per frame): scale =
     max|row|/127, symmetric round-to-nearest, int8. The matrix is
@@ -78,8 +76,8 @@ def _int8_matmul(x: jnp.ndarray, mat: jnp.ndarray) -> jnp.ndarray:
     two scales rescale the result in one fused epilogue.
 
     Error model: uniform ~ rowmax/(127*sqrt(12)) per output element —
-    white across the frame, ~45 dB below a uniform-range signal
-    (measured, benchmarks/int8_probe.py). Intended for the QUANTIZED
+    white across the frame, ~45 dB below a uniform-range signal.
+    Intended for the QUANTIZED
     codec path, whose own noise floor sits far above that; fidelity
     paths keep the float ladder.
     """
@@ -112,12 +110,10 @@ def dct4(
     bfloat16 inputs are upcast to the matrix dtype around the matmul unless
     ``fast_bf16`` is set.
 
-    float32 matmuls default to Precision.HIGHEST: the TPU MXU's default
-    f32 precision is a single bfloat16 pass (~3 decimal digits), which would
-    silently cost ~60 dB of round-trip SNR. HIGHEST uses multi-pass bf16
-    accumulation and recovers true-f32 accuracy; for codec block sizes the
-    extra passes are negligible against the HBM-bandwidth-bound fold. The
-    ``precision`` knob trades that accuracy back for speed (see PRECISIONS).
+    float32 matmuls default to Precision.HIGHEST: an accelerator's default
+    f32 matmul rounds its inputs (TF32 on an H100, ~3 decimal digits),
+    which caps the round-trip SNR far below float32's. The ``precision`` knob
+    trades that accuracy back for speed (see PRECISIONS).
     """
     if precision == "int8":
         return _int8_matmul(x, dct_mat).astype(x.dtype)
@@ -138,3 +134,47 @@ def dct4(
         precision=prec,
         preferred_element_type=x.dtype,
     )
+
+
+def dense_gemm(
+    x: jnp.ndarray,
+    mat2: jnp.ndarray,
+    *,
+    fast_bf16: bool = False,
+    precision: str = "highest",
+) -> jnp.ndarray:
+    """x [..., K] @ mat2 [K, 2M]: the dense MDCT's one GEMM against both
+    taps ``[cur | prev]``, not yet rounded to x's dtype (float32 for
+    float32 and bfloat16 inputs). Operand handling as in :func:`dct4`; at
+    "int8" one global scale covers both taps."""
+    if precision == "int8":
+        return _int8_matmul(x, mat2)
+    prec = PRECISIONS[precision]
+    if x.dtype == jnp.bfloat16:
+        if fast_bf16:
+            return jnp.matmul(x, mat2.astype(jnp.bfloat16),
+                              preferred_element_type=jnp.float32)
+        return jnp.matmul(x.astype(mat2.dtype), mat2, precision=prec)
+    return jnp.matmul(x, mat2, precision=prec, preferred_element_type=x.dtype)
+
+
+def two_tap(
+    x: jnp.ndarray,
+    mat2: jnp.ndarray,
+    *,
+    fast_bf16: bool = False,
+    precision: str = "highest",
+) -> jnp.ndarray:
+    """[..., T, K] -> [..., T+1, M]: y[t] = x[t] @ cur + x[t-1] @ prev
+    with ``mat2 = [cur | prev]`` and zero frames beyond both ends.
+
+    One GEMM over the unpadded frames (:func:`dense_gemm`), then one
+    shifted add that XLA fuses with the padding and the single rounding
+    to x's dtype.
+    """
+    z = dense_gemm(x, mat2, fast_bf16=fast_bf16, precision=precision)
+    m = z.shape[-1] // 2
+    lead = [(0, 0)] * (z.ndim - 2)
+    y = (jnp.pad(z[..., :m], lead + [(0, 1), (0, 0)])
+         + jnp.pad(z[..., m:], lead + [(1, 0), (0, 0)]))
+    return y.astype(x.dtype)

@@ -1,4 +1,4 @@
-"""Diamond fold / unfold for the MDCT polyphase filter bank — TPU-native.
+"""Diamond fold / unfold for the MDCT polyphase filter bank.
 
 The reference realizes the polyphase stage as a 2-tap block convolution with
 *dense* [N, N] matrices H / H_inv, even though each has only 2N nonzeros in a

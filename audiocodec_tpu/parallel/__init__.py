@@ -1,7 +1,7 @@
 """Multi-device scale-out: meshes, sharded corpus encode, training step.
 
 The reference is single-process TF with no distribution machinery at all
-(SURVEY.md §2.2); this subsystem is the TPU-native scale story: GSPMD
+(SURVEY.md §2.2); this subsystem is the scale story: GSPMD
 shardings over a jax.sharding.Mesh, with XLA inserting the collectives.
 """
 

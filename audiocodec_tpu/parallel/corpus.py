@@ -1,7 +1,7 @@
 """Corpus-scale batched encode over a device mesh.
 
 The BASELINE config-4 workload: a thousand-clip corpus streamed through the
-codec as one jit program per batch, clips sharded data-parallel over ICI.
+codec as one jit program per batch, clips sharded data-parallel over the devices.
 The reference has no counterpart (its batching is a tensor dim on one
 device); here the batch axis is laid out over the mesh with GSPMD so the
 same program runs 1-chip or N-chip unchanged.

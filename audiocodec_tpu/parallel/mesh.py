@@ -7,12 +7,12 @@ Two mesh axes cover every parallelism the workload has:
 * ``sp`` (sequence parallelism): the samples/blocks axis of long-form audio.
   The MDCT's polyphase fold couples *adjacent* blocks only (a 2-tap kernel,
   SURVEY.md §5), so sharding the sequence axis needs exactly a one-block halo
-  — GSPMD materializes it as a collective-permute over ICI when the fold's
+  — GSPMD materializes it as a collective-permute between devices when the fold's
   shifted concatenation crosses a shard boundary.
 
 There is no tensor dimension with enough arithmetic intensity to justify
 TP of the [N, N] DCT matmul at codec sizes; replicating the (<=4 MB at
-N=1024, f32) DCT matrix is the right call on any real slice.
+N=1024, f32) DCT matrix is the right call on any real mesh.
 """
 
 from __future__ import annotations

@@ -1,18 +1,18 @@
 """Multi-host (multi-process) initialization and mesh construction.
 
 Single-host multi-chip needs nothing special — parallel.mesh.make_mesh over
-jax.devices(). For multi-host TPU pods (v4/v5 slices spanning workers),
-JAX's distributed runtime must be initialized once per process before any
+jax.devices(). For several hosts (or one process per GPU), JAX's
+distributed runtime must be initialized once per process before any
 device access; afterwards jax.devices() is the GLOBAL device list and the
-same GSPMD programs in this package run unchanged — data parallel batches
-ride ICI within a slice, DCN across slices, with XLA choosing collectives.
+same GSPMD programs in this package run unchanged — XLA chooses the
+collectives (NCCL on GPUs).
 
 This module is a thin, testable wrapper: on a single host it is a no-op,
 so the same launcher script works everywhere.
 
     from audiocodec_tpu.parallel import multihost
     multihost.initialize()               # no-op on single host
-    mesh = multihost.global_mesh(sp=1)   # dp spans every chip in the pod
+    mesh = multihost.global_mesh(sp=1)   # dp spans every device
 
 The codec's collectives are tiny (a one-block ppermute halo for sp, psum
 for metrics/gradients), so cross-host placement of the sp axis is avoided
@@ -33,11 +33,11 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
     """Initialize jax.distributed when running multi-process.
 
     Explicit arguments (or JAX_NUM_PROCESSES > 1) trigger initialization.
-    On Cloud TPU pod slices the canonical call is argument-free
-    autodetection from TPU metadata — that cannot be probed without a
-    network round trip, so opt in with ``auto=True`` from pod launchers:
+    Under a cluster launcher that JAX can autodetect (e.g. SLURM), opt
+    in to argument-free initialization with ``auto=True``; otherwise
+    pass ``coordinator_address`` / ``num_processes`` / ``process_id``:
 
-        multihost.initialize(auto=True)   # pods: metadata autodetection
+        multihost.initialize(auto=True)   # launcher autodetection
         multihost.initialize()            # single host: clean no-op
 
     Returns True when jax.distributed was initialized.
@@ -60,8 +60,8 @@ def global_mesh(sp: int = 1) -> Mesh:
     """A (dp, sp) mesh over ALL devices in the job (all hosts).
 
     The sp axis is laid out within a host's devices (contiguous in the
-    global device enumeration, so its halo collective stays on ICI);
-    dp spans the rest, crossing hosts over DCN only for gradient psums.
+    global device enumeration, so its halo collective stays within a
+    host); dp spans the rest, crossing hosts only for gradient psums.
     """
     devices = np.asarray(jax.devices())
     if devices.size % sp != 0:

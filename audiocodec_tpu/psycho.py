@@ -1,7 +1,7 @@
-"""TPU-native psychoacoustic model (Bark-domain masking).
+"""Psychoacoustic model (Bark-domain masking).
 
 Capability parity with the reference's ``PsychoacousticModel``
-(audiocodec/psychoacoustic.py:13-339), redesigned for TPU/JAX:
+(audiocodec/psychoacoustic.py:13-339), redesigned for JAX:
 
 * Pure-functional pytree dataclass; all Bark-domain precomputes (W, W_inv,
   spreading matrix, threshold in quiet) are built in numpy float64 on the
@@ -274,7 +274,7 @@ def temporal_masking(bark_intensity, decay_db_per_frame: float,
     sidecar is rounded, so the decoder re-derives identical step sizes
     from the transmitted sidecar with no format change (like ``drown``).
 
-    TPU-first formulation: the max over the window is computed by
+    Parallel formulation: the max over the window is computed by
     log-doubling — ceil(log2(window+1)) shifted-scaled elementwise maxes,
     all parallel over frames (no scan carry), fusable by XLA into the
     surrounding threshold program. The window is truncated where the
@@ -337,6 +337,23 @@ def temporal_masking(bark_intensity, decay_db_per_frame: float,
     return x
 
 
+def _exact_sqrt(x: jax.Array) -> jax.Array:
+    """Correctly rounded square root, the same bits on every backend.
+
+    A GPU's float32 sqrt is approximate (off by an ulp in about a fifth
+    of the roots, measured on an H100), while the CPU's is correctly
+    rounded. The root is taken in float64, which is correctly
+    rounded on both, and rounded once to float32: for sqrt, 53 >= 2*24+2
+    bits make that equal to the correctly rounded float32 root. Lower
+    precisions round on from that float32 value, as XLA's own upcast
+    does."""
+    if x.dtype == jnp.float64:
+        return jnp.sqrt(x)
+    with jax.enable_x64(True):
+        root = jnp.sqrt(x.astype(jnp.float64)).astype(jnp.float32)
+    return root.astype(x.dtype)
+
+
 @functools.partial(
     jax.tree_util.register_dataclass,
     data_fields=[
@@ -361,11 +378,12 @@ class PsychoacousticModel:
         (1.0 = linear; 0.6 default).
     :param compute_dtype: float64, float32 (default) or bfloat16; float16 is
         rejected — insufficient exponent range for the 1e-14 intensity floor.
-    :param bark_precision: matmul precision of the Bark-domain
-        contractions (W / spreading / W_inv): "highest" (default — true-f32
-        thresholds), "high", or "default" (one bf16 pass, ~1e-3 relative
-        threshold error — inaudible next to quantization noise; the
-        production quantized path's setting via Codec's dct_precision).
+    :param bark_precision: matmul precision of the encoder-side Bark
+        contractions (W and spreading): "highest" (default — true-f32
+        thresholds), "high", or "default" (TF32 on an H100, ~1e-3
+        relative threshold error — inaudible next to quantization noise).
+        The W_inv sidecar expansion always runs at HIGHEST (see
+        :meth:`_bark_intensity_to_freq_ampl`).
     :param calibrated: False (default) keeps reference parity, including
         the reference's documented caveat that deviating from
         1024/64 bands shifts absolute threshold levels
@@ -633,26 +651,6 @@ class PsychoacousticModel:
         ) * _dtypes.scalar(1.0 / 6.0, self.compute_dtype)
         return mdct_amplitudes + noise
 
-    def add_noise_fast(
-        self, seed, mdct_amplitudes, masking_threshold
-    ) -> jax.Array:
-        """Same operation as :meth:`add_noise` but fused into a single
-        Pallas pass using the TPU hardware PRNG (Box-Muller, exact normal
-        distribution, same sigma = threshold/6 calibration).
-
-        ~5x faster than the counter-based path at production batch sizes —
-        threefry hashing dominates the whole encode chain otherwise. The
-        stream is seeded by (seed, grid position): reproducible for a fixed
-        seed and shape, but not bit-equal to jax.random.normal.
-
-        :param seed: int32 scalar (python int or traced).
-        """
-        from audiocodec_tpu.ops import pallas_noise as _pallas_noise
-
-        return _pallas_noise.add_masked_noise_pallas(
-            mdct_amplitudes, masking_threshold, seed
-        )
-
     # -- Bark mapping ---------------------------------------------------------
 
     def _to_bark_intensity(self, mdct_amplitudes) -> jax.Array:
@@ -667,11 +665,18 @@ class PsychoacousticModel:
 
     def _bark_intensity_to_freq_ampl(self, bark_intensity) -> jax.Array:
         """Bark-band intensities -> filter-band amplitudes: linear intensity
-        split, then sqrt (reference psychoacoustic.py:317-331)."""
+        split, then sqrt (reference psychoacoustic.py:317-331).
+
+        This is the sidecar expansion that encoder and decoder both run
+        to derive step sizes, so every backend must get the same bits:
+        the contraction is pinned to HIGHEST whatever ``bark_precision``
+        says (a TF32 product rounds W_inv's entries), and the square
+        root is correctly rounded (:func:`_exact_sqrt`). On the CPU both
+        were already exact, so neither changes a bit there."""
         intensity = jnp.einsum(
             "nbic,ij->nbjc",
             bark_intensity,
             self.W_inv,
-            precision=self._matmul_precision,
+            precision=jax.lax.Precision.HIGHEST,
         ).astype(self.compute_dtype)
-        return jnp.sqrt(jnp.maximum(self._eps, intensity))
+        return _exact_sqrt(jnp.maximum(self._eps, intensity))

@@ -7,7 +7,7 @@ gamma > 1 coarsens codes monotonically (fewer bits, gracefully degrading
 fidelity starting with the least audible content — the perceptual model
 keeps ordering the damage).
 
-TPU-shaped search instead of a serial bisection: all scale trials of a
+Batched search instead of a serial bisection: all scale trials of a
 round are one vmapped quantize (a single device pass), sizes come from
 actually packing each trial on the host (entropy coding included), and a
 second vmapped round refines each clip inside its own bracketing interval.

@@ -1,10 +1,10 @@
-"""TPU-native polyphase sample-rate conversion.
+"""Polyphase sample-rate conversion.
 
 The reference assumes its input is already at the model's sample rate (it
 has no I/O or rate conversion at all; this framework's CLI refused
-mismatched rates up to now). This module closes that gap the TPU way: a
+mismatched rates up to now). This module closes that gap with a
 rational-ratio (L/M) windowed-sinc polyphase resampler expressed as ONE
-strided convolution that XLA lowers onto the MXU — no per-sample Python,
+strided convolution that XLA lowers to one conv kernel — no per-sample Python,
 no dynamic shapes, differentiable end to end.
 
 Design:
@@ -16,13 +16,14 @@ Design:
   filter taps (c centers the filter so output n sits at time n*M/L).
 * That is exactly a stride-M convolution with L output channels over a
   window of W_in samples: one ``lax.conv_general_dilated`` call, batched
-  over batch x channels, which XLA tiles onto the MXU. No gather, no
+  over batch x channels. No gather, no
   scatter, no zero-stuffed intermediate at rate fs*L.
 * The prototype lowpass is a Kaiser-windowed sinc designed in numpy
   float64 on the host and downcast once (the framework's constant
   policy); cutoff min(fs_in, fs_out)/2 with unity passband gain L.
-* f32 matmuls pin Precision.HIGHEST by default — the MXU's native f32 is
-  a single bf16 pass, which would put -40 dB artifacts in the passband
+* f32 matmuls pin Precision.HIGHEST by default — an accelerator's
+  default f32 rounds its inputs (TF32 on an H100), which would put
+  audible artifacts in the passband
   (same policy as the DCT matmuls, ops/dct.py).
 
 Quality defaults (zeros=16 sinc zero-crossings, Kaiser beta 8.6) give a
@@ -206,7 +207,7 @@ class StreamingResampler:
     remaining samples so the total output length is exactly
     ``out_length(total_input)``.
 
-    The driver is host-side state + the same MXU conv per step; with a
+    The streamer is host-side state + the same conv per step; with a
     fixed chunk size the conv sees at most two distinct shapes (first
     step and steady state), so jit caching behaves.
     """

@@ -14,12 +14,10 @@ exactly one block of carried state per boundary. This module provides:
 
 Chunk-streamed output is bit-identical to the batch transform: the frames
 are the same mathematical objects, just produced K blocks at a time. The
-streaming steps follow the MDCT's XLA formulation — sparse fold at
-multi-pass precision, dense two-matmul at dct_precision="default" — so
-bit-identity holds in both modes. (An MDCT whose ``use_pallas`` resolved
-to a fused kernel direction agrees to kernel-vs-XLA rounding there, not
-bit-exactly.) By
-construction the stream is also resumable: (carry block, block offset) is
+streaming steps follow the MDCT's formulation — sparse fold at
+multi-pass precision, the dense one-GEMM form at dct_precision="default"
+and "int8" — so bit-identity holds in both modes. By construction the
+stream is also resumable: (carry block, block offset) is
 the entire codec state at any chunk boundary — checkpoint those two and
 re-enter anywhere (the framework's failure-recovery story; the reference
 has none, SURVEY.md §5).
@@ -70,6 +68,24 @@ def _out_prev(mdct: MDCT, z):
     )
 
 
+def _dense_frames(mdct: MDCT, ext, mat2, precision):
+    """Dense mode over K+1 carried-in blocks [..., K+1, N] -> K frames:
+    frame[j] = ext[j+1] @ cur + ext[j] @ prev, the batch form's GEMM and
+    add (ops/dct.two_tap) without its edge padding."""
+    z = _dct.dense_gemm(ext, mat2, fast_bf16=mdct.fast_bf16,
+                        precision=precision)
+    n = mdct.filters_n
+    return (z[..., 1:, :n] + z[..., :-1, n:]).astype(ext.dtype)
+
+
+def _dense_tail(mdct: MDCT, last, mat2, precision):
+    """Dense mode's final frame: the last block's ``prev`` tap alone, from
+    the same GEMM (so the int8 tier keeps the batch form's scale)."""
+    z = _dct.dense_gemm(last, mat2, fast_bf16=mdct.fast_bf16,
+                        precision=precision)
+    return z[..., mdct.filters_n:].astype(last.dtype)
+
+
 # -- streaming analysis ------------------------------------------------------
 
 
@@ -96,16 +112,10 @@ def mdct_stream_step(mdct: MDCT, carry, chunk):
     k = samples // n
     xb = jnp.transpose(chunk, (0, 2, 1)).reshape(b, c, k, n)
     ext = jnp.concatenate([carry[:, :, None, :], xb], axis=2)  # [B,C,K+1,N]
-    if mdct.dense_fwd_cur is not None:
-        # dense two-matmul formulation — same numbers as the batch
-        # transform in this mode (mdct.py): y = cur @ A0 + prev @ A1
-        frames = _dct.dct4(
-            ext[:, :, 1:], mdct.dense_fwd_cur, fast_bf16=mdct.fast_bf16,
-            precision=mdct.dct_precision,
-        ) + _dct.dct4(
-            ext[:, :, :-1], mdct.dense_fwd_prev, fast_bf16=mdct.fast_bf16,
-            precision=mdct.dct_precision,
-        )
+    if mdct.dense_fwd is not None:
+        # dense formulation — same numbers as the batch transform in this
+        # mode (ops/dct.two_tap): y = cur @ A0 + prev @ A1, one GEMM
+        frames = _dense_frames(mdct, ext, mdct.dense_fwd, mdct.dct_precision)
     else:
         folded = jnp.concatenate(
             [_to_next(mdct, ext[:, :, :-1]), _to_cur(mdct, ext[:, :, 1:])],
@@ -122,11 +132,9 @@ def mdct_stream_flush(mdct: MDCT, carry):
 
     :return: [B, 1, N, C] — matches the batch transform's last (+1) frame.
     """
-    if mdct.dense_fwd_cur is not None:
-        frame = _dct.dct4(
-            carry[:, :, None, :], mdct.dense_fwd_prev,
-            fast_bf16=mdct.fast_bf16, precision=mdct.dct_precision,
-        )
+    if mdct.dense_fwd is not None:
+        frame = _dense_tail(mdct, carry[:, :, None, :], mdct.dense_fwd,
+                            mdct.dct_precision)
         return jnp.transpose(frame, (0, 2, 3, 1))
     lower = _to_next(mdct, carry)  # [B, C, N/2]
     folded = jnp.concatenate([lower, jnp.zeros_like(lower)], axis=-1)
@@ -158,18 +166,12 @@ def imdct_stream_step(mdct: MDCT, carry, frames):
     n = mdct.filters_n
     b, k, _, c = frames.shape
     yb = jnp.transpose(frames, (0, 3, 1, 2))
-    if mdct.dense_inv_cur is not None:
+    if mdct.dense_inv is not None:
         # dense mode: the carry is the previous chunk's last RAW spectral
         # frame (pre-matmul) instead of its DCT — the step/flush API is
         # carry-opaque, and zeros init works for both representations.
         ext = jnp.concatenate([carry[:, :, None, :], yb], axis=2)
-        out = _dct.dct4(
-            ext[:, :, 1:], mdct.dense_inv_cur, fast_bf16=mdct.fast_bf16,
-            precision=mdct.inv_precision,
-        ) + _dct.dct4(
-            ext[:, :, :-1], mdct.dense_inv_prev, fast_bf16=mdct.fast_bf16,
-            precision=mdct.inv_precision,
-        )
+        out = _dense_frames(mdct, ext, mdct.dense_inv, mdct.inv_precision)
         samples = jnp.transpose(out.reshape(b, c, k * n), (0, 2, 1))
         return yb[:, :, -1], samples
     z = _dct.dct4(yb, mdct.dct_mat_inv, fast_bf16=mdct.fast_bf16,
@@ -182,11 +184,8 @@ def imdct_stream_step(mdct: MDCT, carry, frames):
 
 def imdct_stream_flush(mdct: MDCT, carry):
     """Final N output samples after the last chunk: the carry's tail-out."""
-    if mdct.dense_inv_cur is not None:
-        out = _dct.dct4(
-            carry, mdct.dense_inv_prev, fast_bf16=mdct.fast_bf16,
-            precision=mdct.inv_precision,
-        )
+    if mdct.dense_inv is not None:
+        out = _dense_tail(mdct, carry, mdct.dense_inv, mdct.inv_precision)
         return jnp.transpose(out, (0, 2, 1))
     out = _out_prev(mdct, carry)  # [B, C, N]
     return jnp.transpose(out, (0, 2, 1))

@@ -15,7 +15,7 @@ The reference has no transient handling at all (its encode is
 MDCT -> threshold -> noise -> iMDCT, /root/reference/audiocodec); this
 module is framework-added surface on the coded-bitstream paths.
 
-TPU-first shape: every stage is static-shape and batched over
+Accelerator-friendly shape: every stage is static-shape and batched over
 (batch, frame, channel) lanes with the fixed filter order unrolled —
 autocorrelation is p+1 fused multiply-reduces over the band,
 Levinson-Durbin is p unrolled vectorized steps, the encoder filter is p

@@ -1,4 +1,4 @@
-"""Dtype policy for the TPU-native audio codec.
+"""Dtype policy for the audio codec.
 
 Mirrors the reference's precompute-in-float64-then-downcast discipline
 (reference: audiocodec/mdctransformer.py:31-35) and its compute-dtype

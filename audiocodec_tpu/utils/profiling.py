@@ -4,7 +4,7 @@ The reference's only tracing hook is a single tf.name_scope
 (psychoacoustic.py:138). Here every pipeline stage runs under
 jax.named_scope (searchable in XLA/profiler dumps), and this module adds
 the user-facing entry points: a trace context manager for the JAX profiler
-and a remote-backend-safe stage timer.
+and a stage timer.
 """
 
 from __future__ import annotations
@@ -28,26 +28,15 @@ def trace(log_dir: str):
         jax.profiler.stop_trace()
 
 
-def time_fn(fn, *args, iters: int = 10, readback=None, **kwargs) -> float:
-    """Best-of-`iters` wall seconds for fn(*args).
-
-    On remote-attached backends block_until_ready does not imply device
-    completion, so the timed region ends in a scalar host readback:
-    ``readback`` maps fn's output to an array to reduce (default: the
-    output itself).
-    """
-    import jax.numpy as jnp
-
-    def run():
-        out = fn(*args, **kwargs)
-        target = readback(out) if readback is not None else out
-        leaves = jax.tree_util.tree_leaves(target)
-        return float(jnp.sum(jnp.abs(leaves[0].ravel()[:16])))
-
-    run()  # warm / compile
+def time_fn(fn, *args, iters: int = 10, **kwargs) -> float:
+    """Best-of-`iters` wall seconds for fn(*args), each call ending in
+    ``block_until_ready`` on its outputs (JAX dispatch is asynchronous;
+    without the wait the time is the enqueue). The first call, which
+    compiles, is not counted."""
+    jax.block_until_ready(fn(*args, **kwargs))
     best = float("inf")
     for _ in range(iters):
         t0 = time.perf_counter()
-        run()
+        jax.block_until_ready(fn(*args, **kwargs))
         best = min(best, time.perf_counter() - t0)
     return best

@@ -19,6 +19,7 @@ from audiocodec_tpu.codec import Codec
 
 _DTYPE_NAMES = {"float32": jnp.float32, "float64": jnp.float64,
                 "bfloat16": jnp.bfloat16}
+_RETIRED_KEYS = ("use_pallas", "pallas_kernel")
 
 
 def codec_config(codec: Codec) -> dict:
@@ -31,10 +32,8 @@ def codec_config(codec: Codec) -> dict:
         "window_type": codec.mdct.window_type,
         "compute_dtype": str(jnp.dtype(codec.mdct.compute_dtype)),
         "fast_bf16": codec.mdct.fast_bf16,
-        "use_pallas": codec.mdct.use_pallas,
         "dct_precision": codec.mdct.dct_precision,
         "bark_precision": codec.psycho.bark_precision,
-        "pallas_kernel": codec.mdct.pallas_kernel,
         "sidecar_grid": codec.sidecar_grid,
     }
 
@@ -55,36 +54,18 @@ def load_codec(path: str) -> Codec:
     # rebuild a codec with different thresholds/step sizes than the one
     # that wrote the checkpoint and corrupt decode of its bitstreams.
     cfg.setdefault("bark_precision", "highest")
-    # Configs saved before the radix kernel design existed used the
-    # single-matmul design; like use_pallas it is a perf knob, never
-    # quantization-affecting.
-    cfg.setdefault("pallas_kernel", "mono")
     # Configs saved before sidecar quantization existed were written by
     # codecs that shipped raw-bfloat16 sidecars; defaulting to the new
     # grid would rebuild an encoder whose sidecars (and therefore step
     # sizes) differ from every bitstream the checkpoint already produced.
     cfg.setdefault("sidecar_grid", 0)
-    # use_pallas is saved RESOLVED ("auto" became a concrete direction on
-    # the machine that saved it); Mosaic kernels only run on a real TPU,
-    # so loading that config elsewhere falls back to the XLA path. The
-    # kernel choice is a perf knob, never quantization-affecting (step
-    # sizes derive from thresholds + sidecars, not the transform lowering).
-    import jax
-
-    if cfg.get("use_pallas") and jax.default_backend() != "tpu":
-        cfg["use_pallas"] = False
-    try:
-        return Codec.create(compute_dtype=dtype, **cfg)
-    except ValueError:
-        if not cfg.get("use_pallas"):
-            raise
-        # A checkpoint can carry a use_pallas choice the CURRENT
-        # eligibility rules reject (round-2 configs allowed kernel sizes
-        # that round 3's measured hardware ceilings exclude). The kernel
-        # choice is a perf knob, never quantization-affecting, so degrade
-        # to the XLA path instead of refusing the checkpoint.
-        cfg["use_pallas"] = False
-        return Codec.create(compute_dtype=dtype, **cfg)
+    # Older checkpoints also carry the transform-kernel choices of a
+    # since-removed kernel layer ("use_pallas", "pallas_kernel"). They
+    # never affected quantization (step sizes derive from thresholds and
+    # sidecars, not from the transform's lowering), so they are dropped.
+    for key in _RETIRED_KEYS:
+        cfg.pop(key, None)
+    return Codec.create(compute_dtype=dtype, **cfg)
 
 
 def save_pytree(path: str, tree) -> None:

@@ -39,11 +39,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), ".jax_cache"),
-    )
+    from audiocodec_tpu.utils import compile_cache
+
+    compile_cache.enable()
     import jax.numpy as jnp
 
     from audiocodec_tpu.codec import Codec

@@ -38,7 +38,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from audiocodec_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     from audiocodec_tpu import lossless
 

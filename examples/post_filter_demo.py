@@ -47,7 +47,10 @@ def main():
     import jax.numpy as jnp
     import optax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from audiocodec_tpu.utils import compile_cache
+
+
+    compile_cache.enable()
 
     from audiocodec_tpu import quantize as _q
     from audiocodec_tpu.codec import Codec

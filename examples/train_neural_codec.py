@@ -53,7 +53,10 @@ def main():
     import jax.numpy as jnp
     import optax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from audiocodec_tpu.utils import compile_cache
+
+
+    compile_cache.enable()
 
     from audiocodec_tpu.codec import Codec
     from audiocodec_tpu.models import spectral_ae as sae

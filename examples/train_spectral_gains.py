@@ -34,7 +34,10 @@ def main():
     from audiocodec_tpu.parallel import mesh as _mesh
     from audiocodec_tpu.parallel import train as _train
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from audiocodec_tpu.utils import compile_cache
+
+
+    compile_cache.enable()
 
     n = args.filters_n
     sr = 16000

@@ -369,7 +369,7 @@ class TestRateControlCLI:
 
 
 class TestStreamFeatureCLI:
-    """--chunk-blocks now composes with --ms and --kbps (VERDICT r1 #5)."""
+    """--chunk-blocks composes with --ms and --kbps."""
 
     def _stereo_wav(self, tmp_path, blocks=96, n=256, rate=16000):
         rng = np.random.default_rng(5)

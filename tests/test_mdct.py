@@ -261,7 +261,7 @@ class TestLargeBlocks:
 
 
 class TestDenseDefaultPath:
-    """dct_precision="default" activates the dense two-matmul formulation
+    """dct_precision="default" activates the dense one-GEMM formulation
     (fold collapsed into the matmuls — no lane-reversal passes). On the CPU
     test backend DEFAULT precision is exact f32, so dense and sparse agree
     to f32 roundoff."""
@@ -270,8 +270,8 @@ class TestDenseDefaultPath:
     def test_matches_sparse_path(self, filters_n):
         m = MDCT.create(filters_n)  # highest -> sparse fold
         md = MDCT.create(filters_n, dct_precision="default")
-        assert md.dense_fwd_cur is not None and md.dense_inv_cur is not None
-        assert m.dense_fwd_cur is None
+        assert md.dense_fwd is not None and md.dense_inv is not None
+        assert m.dense_fwd is None
         rng = np.random.default_rng(filters_n)
         x = jnp.asarray(
             rng.uniform(-1, 1, (2, 7 * filters_n, 2)), jnp.float32
@@ -322,14 +322,7 @@ class TestDenseDefaultPath:
     def test_float64_stays_sparse(self):
         md = MDCT.create(64, compute_dtype=jnp.float64,
                          dct_precision="default")
-        assert md.dense_fwd_cur is None
-
-    def test_pallas_direction_takes_precedence(self):
-        md = MDCT.create(256, use_pallas="inverse",
-                         dct_precision="default")
-        # pallas owns the inverse; dense covers only the forward
-        assert md.dense_fwd_cur is not None
-        assert md.dense_inv_cur is None
+        assert md.dense_fwd is None
 
 
 class TestDenseAllWindows:
@@ -339,7 +332,7 @@ class TestDenseAllWindows:
         exactly (H0/H1 are built from the same coefficients)."""
         md = MDCT.create(128, window_type=window_type,
                          dct_precision="default")
-        assert md.dense_fwd_cur is not None
+        assert md.dense_fwd is not None
         rng = np.random.default_rng(3)
         x = jnp.asarray(rng.uniform(-1, 1, (1, 8 * 128, 1)), jnp.float32)
         rt = md.inverse_transform(md.transform(x))
@@ -347,15 +340,13 @@ class TestDenseAllWindows:
 
 
 class TestInt8Tier:
-    """dct_precision="int8" — the MXU int8 mode (docs/DESIGN.md §3c).
+    """dct_precision="int8" — the int8 matmul mode (docs/DESIGN.md §3c).
 
-    XLA-path semantics: int8 dynamic-range ANALYSIS (per-frame scales,
-    ~44 dB transform SNR — white error far below the quantized path's
-    own noise) and one-pass float SYNTHESIS (spectra run 30+ dB of
-    crest; a flat per-row int8 error there lands above the masking
-    threshold — measured composed NMR 0.30 vs 0.021). The Pallas tier
-    restores int8 synthesis with per-128-bin grouped scales (see
-    tests/test_pallas.py)."""
+    Semantics: int8 dynamic-range ANALYSIS (per-frame scales, ~44 dB
+    transform SNR — white error far below the quantized path's own
+    noise) and one-pass float SYNTHESIS (spectra run 30+ dB of crest; a
+    flat per-row int8 error there lands above the masking threshold —
+    measured composed NMR 0.30 vs 0.021)."""
 
     def _snr(self, ref, deg):
         ref = np.asarray(ref, dtype=np.float64)
@@ -365,7 +356,7 @@ class TestInt8Tier:
     def test_forward_error_bounded(self):
         m_hi = MDCT.create(256, dct_precision="highest")
         m_i8 = MDCT.create(256, dct_precision="int8")
-        assert m_i8.dense_fwd_cur is not None  # dense formulation active
+        assert m_i8.dense_fwd is not None  # dense formulation active
         rng = np.random.default_rng(7)
         x = jnp.asarray(rng.uniform(-0.9, 0.9, (2, 8 * 256, 1)), jnp.float32)
         snr = self._snr(m_hi.transform(x), m_i8.transform(x))

@@ -378,3 +378,18 @@ class TestCalibratedMode:
         )(p2, spec, ton)
         assert out.shape == (1, 2, 256, 1)
         assert bool(jnp.all(jnp.isfinite(out)))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16, jnp.float64])
+def test_exact_sqrt_is_the_correctly_rounded_root(dtype):
+    """The step-size square root (psycho._exact_sqrt) equals the CPU's
+    correctly rounded sqrt bit for bit, so moving it off the backend's own
+    float32 sqrt changed no CPU bit."""
+    from audiocodec_tpu import psycho
+
+    rng = np.random.default_rng(0)
+    x = jnp.asarray(10.0 ** rng.uniform(-14, 0, 4096), dtype)
+    got = np.asarray(jax.jit(psycho._exact_sqrt)(x))
+    want = np.asarray(jax.jit(jnp.sqrt)(x))
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)

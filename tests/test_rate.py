@@ -104,8 +104,8 @@ class TestRateControl:
 
 class TestBatchRateControl:
     def test_batch_each_clip_hits_target(self, codec, clip):
-        """Every clip of a batch converges to its own scale (VERDICT r1 #7:
-        trials are vmapped — 2 device passes for the whole batch)."""
+        """Every clip of a batch converges to its own scale (trials are
+        vmapped — 2 device passes for the whole batch)."""
         rng = np.random.default_rng(3)
         quiet = jnp.asarray(
             np.clip(

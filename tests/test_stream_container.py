@@ -661,7 +661,7 @@ class TestFuzz:
 
 class TestStreamFeatureParity:
     """.acs carries everything .acz does: joint stereo + rate control
-    (VERDICT r1 #5 — BASELINE config 5 is an hour of stereo streaming)."""
+    (BASELINE config 5 is an hour of stereo streaming)."""
 
     def test_ms_stream_matches_monolithic_ms(self, codec, stereo_signal,
                                              tmp_path):
@@ -742,7 +742,7 @@ class TestStreamFeatureParity:
 
 
 class TestDensePrecisionStream:
-    """dct_precision="default" codecs (dense two-matmul MDCT) must seek
+    """dct_precision="default" codecs (dense one-GEMM MDCT) must seek
     correctly: the carry re-priming uses the RAW previous frame in dense
     mode, not its DCT (regression: double-DCT corrupted the overlap)."""
 

@@ -98,14 +98,14 @@ class TestStreamingRoundTrip:
 
 
 class TestStreamDenseMode:
-    """dct_precision="default" MDCTs carry the dense two-matmul
+    """dct_precision="default" MDCTs carry the dense one-GEMM
     formulation; the streaming steps must follow it so stream == batch
     holds bit-exactly in that mode too."""
 
     @pytest.fixture()
     def mdct_dense(self):
         m = MDCT.create(64, dct_precision="default")
-        assert m.dense_fwd_cur is not None
+        assert m.dense_fwd is not None
         return m
 
     @pytest.mark.parametrize("chunk_blocks", [1, 3, 4, 12])

@@ -1,5 +1,7 @@
 """Serialization / profiling utility tests."""
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,38 +29,44 @@ class TestCodecSerialization:
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
     def test_none_window_and_pallas_flags(self, tmp_path):
-        codec = Codec.create(
-            16000, filters_n=256, window_type=None, use_pallas=True
-        )
+        codec = Codec.create(16000, filters_n=256, window_type=None)
         path = str(tmp_path / "c.json")
         serialization.save_codec(path, codec)
-        # the config records the resolved kernel choice...
-        assert serialization.codec_config(codec)["use_pallas"] is True
+        # the config records no transform-kernel choice any more...
+        assert "use_pallas" not in serialization.codec_config(codec)
+        assert "pallas_kernel" not in serialization.codec_config(codec)
         restored = serialization.load_codec(path)
         assert restored.mdct.window_type is None
-        # ...but loading on a backend that can't run Mosaic (this CPU test
-        # backend) falls back to the XLA path instead of crashing at the
-        # first transform — the kernel choice is a perf knob, never
-        # quantization-affecting.
-        assert restored.mdct.use_pallas is False
+        # ...and a checkpoint written with one loads and ignores it
+        with open(path) as f:
+            cfg = json.load(f)
+        cfg["use_pallas"] = True
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        old = serialization.load_codec(path)
+        assert old.mdct.window_type is None
+        assert not hasattr(old.mdct, "use_pallas")
 
 
 class TestLegacyConfigCompat:
     def test_pallas_kernel_recorded_and_restored(self, tmp_path):
-        codec = Codec.create(
-            16000, filters_n=256, use_pallas=True, pallas_kernel="radix"
+        """A checkpoint that recorded a kernel design loads to the same
+        codec as one that did not: the design never affected
+        quantization."""
+        cfg = dict(
+            serialization.codec_config(Codec.create(16000, filters_n=256)),
+            use_pallas=True, pallas_kernel="radix",
         )
-        assert serialization.codec_config(codec)["pallas_kernel"] == "radix"
         path = str(tmp_path / "r.json")
-        serialization.save_codec(path, codec)
+        with open(path, "w") as f:
+            json.dump(cfg, f)
         restored = serialization.load_codec(path)
-        # CPU backend: kernels off, but the recorded design choice rides
-        # the config for when it lands back on a TPU
-        assert restored.mdct.pallas_kernel == "radix"
+        want = Codec.create(16000, filters_n=256)
+        for a, b in zip(jax.tree_util.tree_leaves(restored),
+                        jax.tree_util.tree_leaves(want)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
     def test_pre_pallas_kernel_config_defaults_to_mono(self, tmp_path):
-        import json
-
         cfg = {
             "sample_rate": 16000, "filters_n": 256, "bark_bands_n": 32,
             "alpha": 0.6, "window_type": "vorbis",
@@ -70,7 +78,8 @@ class TestLegacyConfigCompat:
         with open(path, "w") as f:
             json.dump(cfg, f)
         restored = serialization.load_codec(path)
-        assert restored.mdct.pallas_kernel == "mono"
+        assert restored.mdct.dct_precision == "highest"
+        assert restored.sidecar_grid == 0
 
     def test_pre_bark_precision_config_defaults_to_highest(self, tmp_path):
         """Configs saved before bark_precision existed were written by
@@ -95,17 +104,12 @@ class TestLegacyConfigCompat:
 
 class TestIneligibleKernelConfigDowngrade:
     def test_stale_use_pallas_size_downgrades_to_xla(self, tmp_path):
-        """A checkpoint whose use_pallas choice the current hardware
-        eligibility rules reject (round-2 allowed kernel sizes round 3
-        excludes) must load with the XLA path, not refuse — the kernel
-        choice is a perf knob, never quantization-affecting."""
-        import json
-
+        """A checkpoint whose use_pallas choice an older kernel layer's
+        size caps rejected loads like any other: the choice is ignored."""
         cfg = {
             "sample_rate": 48000, "filters_n": 2048, "bark_bands_n": 64,
             "alpha": 0.6, "window_type": "vorbis",
             "compute_dtype": "float32", "fast_bf16": False,
-            # highest-precision kernels cap at N=1024 now
             "use_pallas": True, "dct_precision": "highest",
             "bark_precision": "highest",
         }
@@ -113,35 +117,25 @@ class TestIneligibleKernelConfigDowngrade:
         with open(path, "w") as f:
             json.dump(cfg, f)
         restored = serialization.load_codec(path)
-        assert restored.mdct.use_pallas is False
         assert restored.mdct.filters_n == 2048
+        assert restored.mdct.dense_fwd is None
 
-    def test_downgrade_via_create_retry_branch(self, tmp_path, monkeypatch):
-        """Exercise the try/except-ValueError retry in load_codec ITSELF:
-        on the CPU suite the backend guard normally clears use_pallas
-        before Codec.create ever raises, so without pinning the backend
-        to 'tpu' the fallback branch ships untested."""
-        import json
-
-        import jax
-
+    def test_downgrade_via_create_retry_branch(self, tmp_path):
+        """Retired kernel keys are dropped, but a config Codec.create
+        rejects for any other reason must still raise, not silently
+        degrade."""
         cfg = {
             "sample_rate": 48000, "filters_n": 2048, "bark_bands_n": 64,
             "alpha": 0.6, "window_type": "vorbis",
             "compute_dtype": "float32", "fast_bf16": False,
-            # ineligible: highest-precision kernels cap at N=1024
-            "use_pallas": True, "dct_precision": "highest",
-            "bark_precision": "highest",
+            "use_pallas": "inverse", "pallas_kernel": "mono",
+            "dct_precision": "highest", "bark_precision": "highest",
         }
-        path = str(tmp_path / "stale_tpu.json")
+        path = str(tmp_path / "stale_kernel.json")
         with open(path, "w") as f:
             json.dump(cfg, f)
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
         restored = serialization.load_codec(path)
-        assert restored.mdct.use_pallas is False
         assert restored.mdct.dct_precision == "highest"
-        # and a config Codec.create rejects for a NON-kernel reason must
-        # still raise, not silently degrade
         bad = dict(cfg, use_pallas=False, dct_precision="nonsense")
         bad_path = str(tmp_path / "bad.json")
         with open(bad_path, "w") as f:
@@ -285,3 +279,55 @@ class TestPytreeCheckpoint:
             jax.tree.leaves(cont_params), jax.tree.leaves(res_params)
         ):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize(
+    "retired",
+    [
+        {"use_pallas": True},
+        {"use_pallas": "forward", "pallas_kernel": "radix"},
+        {"use_pallas": "auto", "pallas_kernel": "auto"},
+        {"pallas_kernel": "mono"},
+    ],
+)
+def test_old_checkpoint_kernel_keys_ignored(tmp_path, retired):
+    """Checkpoints written while a transform-kernel layer existed load to
+    the codec a fresh create() builds: the keys are dropped."""
+    want = Codec.create(22050, filters_n=256, bark_bands_n=32,
+                        dct_precision="default")
+    path = str(tmp_path / "old.json")
+    with open(path, "w") as f:
+        json.dump({**serialization.codec_config(want), **retired}, f)
+    got = serialization.load_codec(path)
+    assert got.mdct.dct_precision == "default"
+    for a, b in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(want)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+class TestCompileCache:
+    def test_env_var_wins_and_nothing_is_set(self, monkeypatch, tmp_path):
+        from audiocodec_tpu.utils import compile_cache
+
+        before = jax.config.jax_compilation_cache_dir
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert compile_cache.enable() == str(tmp_path)
+        assert jax.config.jax_compilation_cache_dir == before
+
+    def test_default_is_checkout_jax_cache(self, monkeypatch):
+        import os
+
+        import audiocodec_tpu
+        from audiocodec_tpu.utils import compile_cache
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        checkout = os.path.dirname(
+            os.path.dirname(os.path.abspath(audiocodec_tpu.__file__))
+        )
+        before = jax.config.jax_compilation_cache_dir
+        try:
+            path = compile_cache.enable()
+            assert path == os.path.join(checkout, ".jax_cache")
+            assert jax.config.jax_compilation_cache_dir == path
+        finally:
+            jax.config.update("jax_compilation_cache_dir", before)
